@@ -1,6 +1,6 @@
 // Native host-side IO runtime for nerf_rs_tpu.
 //
-// TPU-native counterpart of the reference's host runtime pieces: the raw
+// Counterpart of the reference's host runtime pieces: the raw
 // little-endian f32 tensor reader (/root/reference/src/lib.rs:34-42), the
 // binary PPM writer with clamp*255+0.5 quantization (lib.rs:567-580), and
 // the RGBA converter (lib.rs:582-592). Implemented in C++ (not a Python

@@ -2,7 +2,7 @@
 
 The minimal end-to-end path: weights -> camera -> render_image -> file.
 Equivalent of the reference's native CLI run (lib.rs:647-677), with
-`--impl pallas --dtype bfloat16` selecting the fused-TPU-kernel fast path.
+`--dtype bfloat16` selecting bf16 matmul operands (f32 accumulation).
 """
 
 import os as _os
@@ -20,7 +20,7 @@ def main() -> None:
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--out", default="lego.png")
     ap.add_argument("--ppm", default=None, help="also write a PPM here")
-    ap.add_argument("--impl", default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--impl", default="xla", choices=["xla", "int8"])
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     args = ap.parse_args()

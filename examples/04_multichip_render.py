@@ -3,8 +3,8 @@
 The reference scales with rayon threads on one host (lib.rs:474-565); here
 rays are data-parallel over a `jax.sharding.Mesh` via `shard_map`, and the
 per-ray counter-based RNG makes the result bitwise identical no matter how
-rays are sharded. On CPU this runs with 8 virtual devices; on a TPU pod
-slice the same code spans real chips.
+rays are sharded. On CPU this runs with 8 virtual devices; on a multi-GPU
+host the same code spans the cards.
 """
 
 import os as _os

@@ -46,26 +46,18 @@ def main() -> None:
     key = jax.random.key(0)
 
     t0 = time.perf_counter()
-    kw = {}
-    if jax.default_backend() != "tpu":
-        # On CPU the fused-kernel default would run in slow interpret
-        # mode; sweep with the oracle instead.
-        from nerf_rs_tpu.models.mlp import nerf_mlp
-        kw = dict(mlp_fn=lambda p, x, d: nerf_mlp(p, x, d),
-                  chunk=args.resolution ** 3)
     # A slightly tight AABB and higher threshold keep the grid selective
     # while dilation keeps it conservative (tests/test_accel.py config).
     grid = build_scene_grid(pc, pf, resolution=args.resolution,
-                            aabb=(-1.8, 1.8), sigma_threshold=0.1, **kw)
+                            aabb=(-1.8, 1.8), sigma_threshold=0.1)
     occ = float(np.asarray(grid.occ).mean())
     print(f"grid: {args.resolution}^3 in {time.perf_counter() - t0:.1f}s, "
           f"{occ:.1%} occupied")
 
     exact = np.asarray(render_image(pc, pf, camera, args.size, args.size, key, cfg))
 
-    # Default accel mode (round 3): mask-only culling — dense evaluation
-    # with occupancy-zeroed sigma. Per-sample compaction measured 7-14x
-    # SLOWER than dense on v5e (docs/PERF.md), so it is A/B-only now.
+    # Default accel mode: mask-only culling — dense evaluation with
+    # occupancy-zeroed sigma.
     fast = np.asarray(render_image(pc, pf, camera, args.size, args.size, key, cfg,
                                    grid=grid))
     mse = float(np.mean((exact - fast) ** 2))

@@ -1,11 +1,16 @@
 """Self-launching 2-process distributed render demo.
 
 Run with no arguments: the script relaunches itself as 2 worker processes
-(the pattern of a real multi-host TPU job, one process per host), each
+(the pattern of a real multi-host job, one process per host), each
 joining a `jax.distributed` runtime. Every process executes the same
 global shard_map render over the global mesh; pixel shards host-gather to
-process 0, which writes the image. On CPU the collectives run over Gloo;
-on a TPU pod the identical code uses ICI/DCN.
+process 0, which writes the image.
+
+Both workers stay on the CPU (JAX_PLATFORMS=cpu, 2 virtual devices each)
+even on a GPU host, and the collectives run over Gloo: two JAX processes
+opening the same card would each try to reserve most of its memory. On a
+multi-host GPU cluster the identical code runs one process per host, each
+on its own cards, with the collectives over NCCL.
 """
 
 import os as _os

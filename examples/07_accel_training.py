@@ -44,14 +44,9 @@ def main() -> None:
     teacher = {"coarse": load_nerf_params(assets / "coarse"),
                "fine": load_nerf_params(assets / "fine")}
 
-    kw = {}
-    if jax.default_backend() != "tpu":
-        from nerf_rs_tpu.models.mlp import nerf_mlp
-        kw = dict(mlp_fn=lambda p, x, d: nerf_mlp(p, x, d),
-                  chunk=args.resolution ** 3)
     grid = build_scene_grid(teacher["coarse"], teacher["fine"],
                             resolution=args.resolution,
-                            aabb=(-1.8, 1.8), sigma_threshold=0.1, **kw)
+                            aabb=(-1.8, 1.8), sigma_threshold=0.1)
     occ = float(np.asarray(grid.occ).mean())
     print(f"teacher grid: {args.resolution}^3, {occ:.1%} occupied")
 

@@ -2,7 +2,7 @@
 
 The compiled render is reused across frames (same shapes, only camera
 tensors change — zero recompiles after the first frame), which is exactly
-how a TPU-resident interactive viewer serves a moving camera. Frames are
+how a device-resident interactive viewer serves a moving camera. Frames are
 written as frame_000.png... ; stitch them with any tool, e.g.
 `ffmpeg -i frame_%03d.png turntable.gif`.
 """
@@ -23,7 +23,7 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=12)
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--outdir", default="turntable")
-    ap.add_argument("--impl", default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--impl", default="xla", choices=["xla", "int8"])
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     args = ap.parse_args()
     if args.cpu:

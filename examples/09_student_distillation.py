@@ -3,7 +3,7 @@
 The reference ships exactly one MLP (network.rs:172-237). This framework
 spans a parametric family: smaller *student* networks distilled from the
 pretrained teacher cut MLP FLOPs roughly quadratically in width — the
-second work-reduction axis after occupancy culling (docs/PERF.md). This
+second work-reduction axis after occupancy culling. This
 example trains a small student for a few steps, evaluates its PSNR vs the
 teacher on a held-out view, and shows the throughput delta of the smaller
 forward.
@@ -86,7 +86,7 @@ def main() -> None:
     print(f"student PSNR vs teacher @{s}px after {args.steps} steps: "
           f"{-10.0 * np.log10(max(mse, 1e-12)):.2f} dB "
           "(a real run trains tens of thousands of steps — "
-          "see tools/tpu_convergence.sh)")
+          "see assets/trained/README.md)")
 
 
 if __name__ == "__main__":

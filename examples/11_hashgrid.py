@@ -92,8 +92,7 @@ def main() -> None:
     mse = float(np.mean((img - ref) ** 2))
     print(f"hashgrid PSNR vs teacher @{s}px after {args.steps} steps: "
           f"{-10.0 * np.log10(max(mse, 1e-12)):.2f} dB "
-          "(a real run distills thousands of steps — "
-          "see tools/tpu_watch.sh's hashgrid leg)")
+          "(a real run distills thousands of steps)")
     save_png(args.out, img, s, s)
     print(f"wrote {args.out}")
 

@@ -1,10 +1,10 @@
 """Int8 W8A8 quantization: PTQ serving + QAT distillation (models/quant.py).
 
-The v5e MXU runs int8 at ~2x the bf16 FLOP rate — but the measured
-verdict (docs/PERF.md) is that the XLA int8 render path LOSES end-to-end
-on TPU (per-layer dynamic requantize + HBM activation round-trips), so
-the path's value is capability: 4x smaller serving weights and a
-quantization-aware training story.
+The H100's tensor cores run int8 at twice the bf16 rate; whether the XLA
+int8 render path (per-layer dynamic requantize + activation round-trips
+through device memory) wins end to end is not measured yet (PERF.md, Open
+questions). Its value today is capability: 4x smaller serving weights and
+a quantization-aware training story.
 
 This example:
   1. renders a frame with the f32/bf16 exact path and with
@@ -12,8 +12,7 @@ This example:
      between them — the PTQ quality cost;
   2. runs a few QAT steps (``impl="int8qat"``: straight-through-estimator
      gradients through the quantizer) and shows the loss is finite and
-     moving — the training loop a real int8 distill runs
-     (tools/tpu_round3_chain2.sh drives the full version).
+     moving — the training loop a real int8 distill runs.
 
 Equivalent CLI:
     python -m nerf_rs_tpu render --impl int8 -o int8.png

@@ -1,13 +1,13 @@
-"""nerf_rs_tpu — a TPU-native differentiable NeRF framework.
+"""nerf_rs_tpu — a differentiable NeRF framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 ``elisabeth96/nerf-rs`` reference (a CPU/WASM Rust NeRF inference renderer):
 hierarchical coarse/fine stratified ray sampling, sinusoidal positional
 encoding, the classic 8-layer density+RGB MLP with skip connection and
 view-direction conditioning, alpha-composited volumetric integration, and
 PPM/PNG/RGBA image output — plus everything the reference lacks: full
-differentiable training, fused Pallas TPU kernels, and multi-chip sharding
-via ``jax.sharding.Mesh``.
+differentiable training, a bf16 serving path, occupancy-grid acceleration,
+and multi-device sharding via ``jax.sharding.Mesh``.
 
 Numerical contracts (encoding scheme without a pi factor, ReLU sigma head,
 ``far - t`` final delta, interior-weight PDF, white-background compositing,

@@ -2,25 +2,23 @@
 
 The reference marches every ray through all 64+128 samples regardless of
 content (/root/reference/src/lib.rs:375-459); its only work-saver is the
-T<1e-4 early-out *inside* the weight loop. On TPU the equivalent lever is
+T<1e-4 early-out *inside* the weight loop. Here the equivalent lever is
 skipping MLP evaluations entirely for samples in empty space, using a
 precomputed conservative density grid (the NerfAcc recipe — see PAPERS.md)
 — an opt-in fast mode; the exact reference-parity path stays the default.
 
 Pieces:
 - ``build_occupancy_grid``: one-time dense sigma sweep of the scene AABB on
-  the pretrained network (chunked through the fused MLP), thresholded and
+  the pretrained network (chunked through the bf16 MLP), thresholded and
   dilated by one cell (3^3 max-pool) so the grid over-approximates
   occupancy.
 - ``query_occupancy``: nearest-cell lookup for sample points (one flat
   gather).
 - ``compact_apply``: evaluate ``fn`` only at masked rows by compacting
-  them to a fixed-capacity buffer (static shapes — the TPU has no dynamic
-  batching) and gathering results back; rows beyond capacity fall back to
-  ``fill`` (overflow is counted so callers can validate). The compaction
-  itself is gather-only (cumsum + binary search): TPU scatters with N
-  dynamic indices serialize, which made the original scatter formulation
-  a net slowdown (NERF_ACCEL_COMPACT=scatter keeps it for A/B).
+  them to a fixed-capacity buffer (static shapes under jit) and gathering
+  results back; rows beyond capacity fall back to ``fill`` (overflow is
+  counted so callers can validate). Two formulations: cumsum + scatter,
+  and gather-only (cumsum + binary search).
 
 Numerics: a skipped sample contributes sigma = 0 exactly. With a
 conservative grid (low threshold + dilation) the image deviation is
@@ -50,29 +48,13 @@ class OccupancyGrid(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def _default_grid_mlp_fn():
-    """One cached partial: a fresh partial per build would defeat
-    _grid_sweep's jit cache (mlp_fn identity is part of its key)."""
-    from nerf_rs_tpu.ops.kernels.fused_mlp import fused_nerf_mlp
-
-    return functools.partial(fused_nerf_mlp, sigma_only=True, dtype="bfloat16")
-
-
-@functools.lru_cache(maxsize=None)
-def _oracle_grid_mlp_fn():
-    """Cached oracle sigma fn for non-canonical (ArchConfig student)
-    params — the fused kernel is specialized to the canonical shapes."""
+    """One cached partial (bf16 operands, f32 accumulation — the grid is
+    thresholded and dilated, so bf16 sigma is ample): a fresh partial per
+    build would defeat _grid_sweep's jit cache (mlp_fn identity is part of
+    its key)."""
     from nerf_rs_tpu.models.mlp import nerf_mlp
 
-    def fn(params, pts, dirs):
-        return nerf_mlp(params, pts, dirs, sigma_only=True)
-
-    return fn
-
-
-def _params_fused_ok(params) -> bool:
-    from nerf_rs_tpu.ops.kernels.fused_mlp import supports_arch
-
-    return supports_arch(params)
+    return functools.partial(nerf_mlp, sigma_only=True, dtype="bfloat16")
 
 
 @functools.partial(jax.jit, static_argnames=("mlp_fn", "chunk", "r", "dilate",
@@ -111,7 +93,7 @@ def _grid_sweep(params, pts, sigma_threshold, *, mlp_fn, chunk: int, r: int,
 def hashgrid_grid_kwargs(cfg) -> dict:
     """build_scene_grid kwargs for a hashgrid RenderConfig: sweep the hash
     field itself over ITS aabb. The default sweep assumes the MLP family
-    (fused/oracle mlp_fn) and the default (-2, 2) box — a hashgrid trained
+    (models/mlp.py) and the default (-2, 2) box — a hashgrid trained
     with a wider --hash-extent would otherwise have everything outside
     (-2, 2) silently culled (out-of-AABB = unoccupied, query_occupancy).
     Cached per (frozen, hashable) cfg so the sigma_fn identity is stable —
@@ -140,14 +122,11 @@ def build_occupancy_grid(
     """Dense sigma sweep at cell centers -> thresholded, dilated bool grid.
 
     ``mlp_fn(params, points, viewdirs) -> (rgb, sigma)`` defaults to the
-    fused kernel's sigma-only path. One-time cost: resolution^3 MLP evals
-    (~2M at 128^3 — tens of ms on a v5e).
+    bf16 MLP's sigma-only path. One-time cost: resolution^3 MLP evals
+    (~2M at 128^3).
     """
     if mlp_fn is None:
-        # The fused kernel serves the whole 128-aligned ArchConfig family;
-        # unaligned students sweep through the oracle.
-        mlp_fn = (_default_grid_mlp_fn() if _params_fused_ok(params)
-                  else _oracle_grid_mlp_fn())
+        mlp_fn = _default_grid_mlp_fn()
     chunk = min(chunk, resolution ** 3)  # don't pad a small sweep 64x
 
     lo, hi = float(aabb[0]), float(aabb[1])
@@ -177,8 +156,7 @@ def density_grid(
     geometry extraction (extract.extract_voxel_mesh). Same sweep machinery
     as build_occupancy_grid, without thresholding."""
     if mlp_fn is None:
-        mlp_fn = (_default_grid_mlp_fn() if _params_fused_ok(params)
-                  else _oracle_grid_mlp_fn())
+        mlp_fn = _default_grid_mlp_fn()
     chunk = min(chunk, resolution ** 3)
     lo, hi = float(aabb[0]), float(aabb[1])
     r = resolution
@@ -314,10 +292,8 @@ def strided_ray_ranges(grid: OccupancyGrid, origin: jnp.ndarray,
     """Per-ray occupied ranges computed on a ``stride``-subsampled ray
     grid, conservatively expanded back to full resolution.
 
-    Why: XLA's TPU gather runs at ~10 ns/element, so exact per-ray probe
-    ranges at 800x800x128 probes cost ~0.6 s/frame — more than the rays
-    they cull save (measured 2026-08-19: s32x64_aabb_probe 247 K vs
-    s32x64_accel_aabb 326 K rays/s). Probing one ray per stride x stride
+    Why: exact per-ray probe ranges at 800x800x128 probes are 82 M grid
+    gathers per frame. Probing one ray per stride x stride
     block cuts the gathers by stride^2; a 3x3 min/max union-pool over the
     coarse grid then widens each block's range to cover its neighbors, so
     intra-block geometry variation is bounded by a whole extra block of
@@ -393,14 +369,9 @@ def compact_apply(
     if impl is None:
         impl = os.environ.get("NERF_ACCEL_COMPACT", "scatter")
     if impl == "gather":
-        # Scatter-free alternative, kept for A/B: find the j-th live row by
-        # binary search over the inclusive cumsum (log2(n)~20 vectorized
-        # gathers) and gather rows to the buffer. Measured 2026-08-18 on
-        # v5e at 800x800: LOSES to the scatter formulation (20.8 K vs
-        # 44.3 K rays/s) — searchsorted's repeated large HBM gathers cost
-        # more than the one scatter. Both lose to the dense path (291 K);
-        # per-sample compaction culling is not a win on this hardware, the
-        # winning accel levers are AABB sample placement + reduced samples.
+        # Scatter-free alternative: find the j-th live row by binary
+        # search over the inclusive cumsum (log2(n)~20 vectorized gathers)
+        # and gather rows to the buffer.
         slots = jnp.arange(1, capacity + 1, dtype=csum.dtype)
         src = jnp.searchsorted(csum, slots, side="left")
         valid = (jnp.arange(capacity) < live_total)[:, None]

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid NeRF (Instant-NGP family) — TPU-native.
+"""Multiresolution hash-grid NeRF (Instant-NGP family) in plain JAX.
 
 A second model family beyond the reference's single fixed MLP
 (/root/reference/src/network.rs:172-237): the multiresolution hash
@@ -10,15 +10,13 @@ Per-sample work drops from ~590 K MACs (canonical MLP) to ~10 K MACs +
 L*8 table gathers — the second big work-reduction axis (after occupancy
 culling) toward the 10 M rays/s north-star (BASELINE.md).
 
-TPU-first design decisions (vs the paper's CUDA kernels):
+Design decisions (vs the paper's CUDA kernels):
 
-- **Layout-first encode: every intermediate is (L, N).** Levels ride the
-  sublane axis, flattened points the lane axis; per-axis component math
-  replaces any tensor with a trailing xyz(3)/corner(8)/feature(2) dim —
-  those tile to (8, 128) vregs at 8-64x padding, and the earlier
-  (..., L, 3) form cost 1.12 GB PER u32 index temp at 4096-ray chunks
-  and OOM'd the 16 GB v5e at compile (hashgrid_800 exit-1 records,
-  2026-08-19). All L levels live in one stacked ``(L*T, F)`` table
+- **Layout-first encode: every intermediate is (L, N).** Levels lead,
+  flattened points trail; per-axis component math replaces any tensor
+  with a small trailing xyz(3)/corner(8)/feature(2) dim, which XLA tiles
+  with heavy padding (an (..., L, 3) index temp alone is over 1 GB at
+  4096-ray chunks). All L levels live in one stacked ``(L*T, F)`` table
   (per-level indices offset by ``level*T``); one gather per trilinear
   corner, accumulated in place. On the bf16 F=2 speed path BOTH features
   come from a single u32 element gather (``_packed_pair_gather``:
@@ -33,7 +31,8 @@ TPU-first design decisions (vs the paper's CUDA kernels):
   program); everything else is pure array math.
 - **bf16 tables, f32 positions**: positions need f32 (a 1024^3 grid eats
   ~10 bits of mantissa); the gathered features tolerate bf16 (halves the
-  HBM bytes of the dominant op). Controlled by the caller's ``dtype``.
+  device-memory bytes of the dominant op). Controlled by the caller's
+  ``dtype``.
 
 Interfaces mirror models/mlp.py exactly — ``hashgrid_mlp(params, points,
 viewdirs, sigma_only=...)`` returns ``(rgb, sigma)`` — so render_rays,
@@ -125,10 +124,8 @@ def _table_gather_sorted(flat_tables: jnp.ndarray,
 
     The table gradient is a (batch*L*8, F)-row scatter-add into the
     (L*T, F) table with heavy index collisions (every sample touches 8
-    corners per level; coarse levels have very few distinct cells). XLA's
-    TPU scatter serializes on collisions — measured 467 rays/s for a full
-    hashgrid train step (sweep `hashgrid_train`, 2026-08-19), ~150x slower
-    than the MLP family. Here the backward instead:
+    corners per level; coarse levels have very few distinct cells), and
+    a scatter serializes on colliding indices. Here the backward instead:
 
       sort rows by table index (one lax.sort_key_val)
       -> f32 cumulative sum over the sorted gradient rows
@@ -186,9 +183,9 @@ def _packed_pair_gather(flat2: jnp.ndarray, idx: jnp.ndarray):
     """Gather both bf16 features of a (M, 2) table with ONE u32 element
     gather, returning a (f0, f1) pair of idx-shaped bf16 arrays.
 
-    TPU layout trick: the pair is bitcast to a (M,) uint32 column, so the
-    gather's OUTPUT has the same large-minor-dim shape as ``idx`` — no
-    trailing F=2 axis that would tile to (8, 128) vregs at 64x padding.
+    Layout trick: the pair is bitcast to a (M,) uint32 column, so the
+    gather's OUTPUT has the same shape as ``idx`` — no trailing F=2 axis
+    (which XLA would tile with heavy padding) and one 4-byte row read.
     The halves unpack with elementwise bit ops (a bf16's f32 bits are its
     own bits << 16). The custom VJP restores differentiability (bitcasts
     have no gradient): the backward is the standard scatter-add, which
@@ -227,14 +224,11 @@ def hash_encode(tables: jnp.ndarray, points: jnp.ndarray, cfg) -> jnp.ndarray:
     background handling keeps them inert, same stance as accel.py's
     out-of-AABB = unoccupied rule).
 
-    LAYOUT-FIRST internals (the v5e compile dump is the design document
-    here): every intermediate is a (L, N) array — levels on sublanes,
-    flattened points on lanes. Any array with a trailing xyz (3) or
-    feature (2) axis tiles to (8, 128) vregs at 8-64x padding; the
-    earlier (..., L, 3) form cost 1.12 GB PER u32 index temp at 4096-ray
-    chunks and OOM'd HBM at compile (hashgrid_800 exit-1 records,
-    2026-08-19). Per-axis component math + the packed-pair gather keep
-    the largest temp at the unpadded (L, N) size.
+    LAYOUT-FIRST internals: every intermediate is a (L, N) array —
+    levels first, flattened points last. Any array with a small trailing
+    xyz (3) or feature (2) axis is tiled with heavy padding; per-axis
+    component math + the packed-pair gather keep the largest temp at the
+    unpadded (L, N) size.
     """
     tables = jnp.asarray(tables)
     L, T, F = tables.shape
@@ -333,7 +327,12 @@ def _trunc_exp(x: jnp.ndarray) -> jnp.ndarray:
 
 def _dense(params, name: str, x: jnp.ndarray) -> jnp.ndarray:
     p = params[name]
-    return x @ p["kernel"].astype(x.dtype) + p["bias"].astype(x.dtype)
+    # f32 asks for HIGHEST precision explicitly: the GPU may otherwise run
+    # f32 matmuls in TF32 (~3 decimal digits).
+    prec = (jax.lax.Precision.HIGHEST if x.dtype == jnp.float32
+            else jax.lax.Precision.DEFAULT)
+    return (jnp.dot(x, p["kernel"].astype(x.dtype), precision=prec)
+            + p["bias"].astype(x.dtype))
 
 
 def hashgrid_mlp(

@@ -1,7 +1,8 @@
 """The classic NeRF density+RGB MLP, pure-JAX reference forward.
 
-This is the framework's numerical oracle: every fused Pallas kernel is
-validated allclose against it. Architecture mirrors Network::forward_batch
+In float32 this is the framework's numerical oracle (HIGHEST-precision
+matmuls); in bfloat16 it is the fast serving path. Architecture mirrors
+Network::forward_batch
 (/root/reference/src/network.rs:197-237):
 
     h0 = gamma_10(points)                        (63)
@@ -14,10 +15,18 @@ validated allclose against it. Architecture mirrors Network::forward_batch
     hv     = ReLU(viewdirs_layer(q))             (128)
     rgb    = Sigmoid(rgb_layer(hv))              (3)     network.rs:222-223
 
-Layout difference from the reference (deliberate, TPU-first): activations are
-batch-major ``(..., features)`` and layers compute ``x @ kernel + bias`` —
+Layout difference from the reference: activations are batch-major
+``(..., features)`` and layers compute ``x @ kernel + bias`` —
 mathematically identical to the reference's transposed GEMM over
 ``(features, batch)`` columns.
+
+Reduced-precision numerics (``dtype="bfloat16"``): points and view
+directions stay float32 through the positional encoding (the 2^9-frequency
+band would lose its phase in bf16), only the matmul OPERANDS are cast to
+the compute dtype, products accumulate in float32, and bias + activation
+run in float32 before the next layer's cast. Rounding each layer's output
+to bf16 instead costs ~5-8 dB of image PSNR against the f32 render
+(tests/test_render.py::test_bf16_render_psnr_vs_f32).
 """
 
 from __future__ import annotations
@@ -32,14 +41,20 @@ from nerf_rs_tpu.io.weights import CANONICAL_SHAPES, LAYER_NAMES
 from nerf_rs_tpu.models.encoding import positional_encoding
 
 
-def _dense(params, name: str, x: jnp.ndarray) -> jnp.ndarray:
+def _dense(params, name: str, x: jnp.ndarray, dtype) -> jnp.ndarray:
+    """float32 ``x @ kernel + bias`` with operands in the compute ``dtype``.
+
+    float32 asks for HIGHEST precision: the GPU's default may run f32
+    matmuls in TF32 (~3 decimal digits), which misses the 1e-2 golden
+    tolerance. Reduced dtypes accumulate in float32 instead."""
     p = params[name]
-    kernel = p["kernel"].astype(x.dtype)
-    bias = p["bias"].astype(x.dtype)
-    # HIGHEST precision: in f32 this forces true-f32 MXU passes on TPU (the
-    # default would round through bf16 and miss the 1e-2 golden tolerance).
-    # In bf16 compute dtype it is a no-op speed-wise.
-    return jnp.dot(x, kernel, precision=jax.lax.Precision.HIGHEST) + bias
+    if dtype == jnp.float32:
+        y = jnp.dot(x.astype(jnp.float32), p["kernel"].astype(jnp.float32),
+                    precision=jax.lax.Precision.HIGHEST)
+    else:
+        y = jnp.dot(x.astype(dtype), p["kernel"].astype(dtype),
+                    preferred_element_type=jnp.float32)
+    return y + p["bias"].astype(jnp.float32)
 
 
 def nerf_mlp(
@@ -50,14 +65,17 @@ def nerf_mlp(
     x_freqs: int = 10,
     d_freqs: int = 4,
     sigma_only: bool = False,
+    dtype="float32",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Evaluate the MLP at ``points`` (..., 3) with view dirs (..., 3).
 
-    ``viewdirs`` broadcasts against points' batch shape. Returns
+    ``viewdirs`` broadcasts against points' batch shape. Returns float32
     ``(rgb (..., 3), sigma (...,))``. With ``sigma_only`` the color branch
     is skipped and rgb is zeros (coarse pass discards colors, lib.rs:404).
+    ``dtype`` is the matmul operand dtype (module docstring).
     """
-    h0 = positional_encoding(points, x_freqs)
+    dtype = jnp.dtype(dtype)
+    h0 = positional_encoding(points.astype(jnp.float32), x_freqs)
     h = h0
     # Depth and skip placement derive from the params themselves (number of
     # dense{i} entries; a layer whose input dim exceeds the running width by
@@ -70,18 +88,18 @@ def nerf_mlp(
         if i > 0 and d_in == h.shape[-1] + enc_dim:
             # skip: encoded input FIRST (network.rs:210-211)
             h = jnp.concatenate([h0, h], axis=-1)
-        h = jax.nn.relu(_dense(params, f"dense{i}", h))
+        h = jax.nn.relu(_dense(params, f"dense{i}", h, dtype))
 
-    sigma = jax.nn.relu(_dense(params, "alpha", h))[..., 0]
+    sigma = jax.nn.relu(_dense(params, "alpha", h, dtype))[..., 0]
     if sigma_only:
         return jnp.zeros((*sigma.shape, 3), sigma.dtype), sigma
 
-    bottleneck = _dense(params, "bottleneck", h)
-    dirs_enc = positional_encoding(viewdirs, d_freqs)
+    bottleneck = _dense(params, "bottleneck", h, dtype)
+    dirs_enc = positional_encoding(viewdirs.astype(jnp.float32), d_freqs)
     dirs_enc = jnp.broadcast_to(dirs_enc, (*bottleneck.shape[:-1], dirs_enc.shape[-1]))
     q = jnp.concatenate([bottleneck, dirs_enc], axis=-1)  # bottleneck FIRST (network.rs:219-220)
-    hv = jax.nn.relu(_dense(params, "viewdirs", q))
-    rgb = jax.nn.sigmoid(_dense(params, "rgb", hv))
+    hv = jax.nn.relu(_dense(params, "viewdirs", q, dtype))
+    rgb = jax.nn.sigmoid(_dense(params, "rgb", hv, dtype))
     return rgb, sigma
 
 

@@ -1,14 +1,13 @@
 """Int8 quantization for the MLP family: W8A8 inference + QAT fake-quant.
 
-The v5e MXU runs int8 x int8 -> int32 at ~2x the bf16 FLOP rate, making
-an int8 student the multiplicative lever on top of the ArchConfig
-work-reduction axis (PLAN.md item 10). Measured groundwork
-(tools/int8_study.py, CPU numerics, 64px 32+64 vs the f32 teacher):
-naive post-training W8A8 sits AT the 40 dB contract (per-tensor
-activations 35.8 dB, per-row 39.4 dB) — so the production path is
-quantization-aware distillation (QAT): train the student THROUGH the
-quantizer with straight-through-estimator gradients, then serve real
-int8.
+Int8 tensor-core matmuls run at twice the bf16 rate on the H100, which
+makes an int8 student a multiplicative lever on top of the ArchConfig
+work-reduction axis. Measured groundwork (tools/int8_study.py, CPU
+numerics, 64px 32+64 vs the f32 teacher): naive post-training W8A8 sits
+AT the 40 dB contract (per-tensor activations 35.8 dB, per-row 39.4 dB) —
+so the production path is quantization-aware distillation (QAT): train
+the student THROUGH the quantizer with straight-through-estimator
+gradients, then serve real int8.
 
 Scheme (both modes share the same arithmetic, so QAT optimizes exactly
 the numbers inference runs):
@@ -16,7 +15,7 @@ the numbers inference runs):
 - Weights: symmetric per-OUTPUT-channel int8; scale = absmax/127 per
   column. Biases stay f32 (they add after the int32 accumulator).
 - Activations: symmetric per-ROW (per-sample) dynamic int8 — the absmax
-  reduce is one cheap VPU pass per layer; per-row beats per-tensor by
+  reduce is one cheap elementwise pass per layer; per-row beats per-tensor by
   +3.6 dB in the PTQ study and needs no calibration data.
 - Accumulation: int32 (``preferred_element_type``), dequantized by the
   rank-1 outer product of row and column scales.
@@ -25,7 +24,7 @@ Two RenderConfig.impl values plug this into every render/train path via
 render.get_mlp_fn:
 
 - ``impl="int8"``   — REAL W8A8 inference: int8 tensors into
-  ``lax.dot_general`` (XLA lowers to MXU int8). Weights are quantized
+  ``lax.dot_general`` (XLA lowers to an int8 GEMM). Weights are quantized
   inside the jit from the ordinary f32 param pytree — loop-invariant
   code motion hoists the (in, out)-sized quantize out of the ray-chunk
   scan, and every checkpoint/serving path keeps working unchanged.
@@ -35,7 +34,7 @@ render.get_mlp_fn:
   distills a student that serves losslessly under ``--impl int8``.
 
 The reference has no quantization story (f32 GEMMs only,
-/root/reference/src/network.rs:89-122); this module exists for the TPU
+/root/reference/src/network.rs:89-122); this module exists for the
 throughput headroom, not reference parity.
 """
 
@@ -67,7 +66,7 @@ def _row_scale(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def _qdense_real(params, name: str, x: jnp.ndarray) -> jnp.ndarray:
-    """Real W8A8 dense: int8 operands -> int32 MXU accumulate -> f32
+    """Real W8A8 dense: int8 operands -> int32 accumulate -> f32
     dequant * rank-1 scales + bias."""
     w = params[name]["kernel"].astype(jnp.float32)
     b = params[name]["bias"].astype(jnp.float32)
@@ -104,7 +103,7 @@ def int8_nerf_mlp(
     fake: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """models.mlp.nerf_mlp with every dense layer W8A8-quantized —
-    ``fake=False`` runs real int8 MXU matmuls (inference), ``fake=True``
+    ``fake=False`` runs real int8 matmuls (inference), ``fake=True``
     runs the float STE emulation (QAT training forward). Same contract
     and arch-inference rules as the oracle (docstring there)."""
     dense = _qdense_fake if fake else _qdense_real

@@ -1,6 +1,6 @@
 """Ray sampling: stratified bins and hierarchical inverse-CDF resampling.
 
-TPU-first redesign of the reference's per-ray scalar loops into fixed-shape
+Redesign of the reference's per-ray scalar loops into fixed-shape
 batched array programs with counter-based `jax.random` keys (deterministic,
 device-resident — unlike the reference's OS-seeded per-thread `thread_rng`,
 lib.rs:375,407).
@@ -80,12 +80,12 @@ def importance_samples(
 
     u = _batched_uniform(key, ts.shape[:-1], count, ts.dtype)
 
-    # Bin lookup, TPU-style: cdf is strictly increasing (pdf >= pdf_eps/sum),
-    # so "first j with cdf[j] <= u < cdf[j+1]" (the reference's linear scan)
+    # Bin lookup: cdf is strictly increasing (pdf >= pdf_eps/sum), so
+    # "first j with cdf[j] <= u < cdf[j+1]" (the reference's linear scan)
     # selects exactly one bin. Build that one-hot (..., count, n_bins) and
-    # contract it against the per-bin [cdf_lo, cdf_hi, bin_lo, bin_hi] table
-    # on the MXU — gathers (take_along_axis) are scalar-slow on TPU and were
-    # ~50x slower than this formulation.
+    # contract it against the per-bin [cdf_lo, cdf_hi, bin_lo, bin_hi]
+    # table (a batched matmul, HIGHEST so the selection stays exact in
+    # f32) in place of a per-sample gather.
     one_hot = (
         (u[..., :, None] >= cdf[..., None, :-1])
         & (u[..., :, None] < cdf[..., None, 1:])

@@ -8,7 +8,7 @@ data-dependent early-out (compute_weights, /root/reference/src/lib.rs:250-283):
     w_i     = T_i * alpha_i;  T <- T * (1 - alpha_i)
     break once T < 1e-4, zero-filling the remaining weights.
 
-TPU-first form: the recurrence is a product scan. With sigma >= 0 (ReLU head)
+Batched form: the recurrence is a product scan. With sigma >= 0 (ReLU head)
 and delta >= 0, T is monotone non-increasing, so "some earlier break happened
 before index k" is exactly "T_k < 1e-4" — the early-out becomes a single
 elementwise mask on the exclusive cumulative product. Mathematically equal to

@@ -1,8 +1,8 @@
 """Device mesh + sharding layout.
 
 The reference's only parallelism is rayon work-stealing over 8x8 pixel blocks
-(/root/reference/src/lib.rs:532-550). The TPU-native replacement: rays are
-data-parallel across chips on a 1-D ``jax.sharding.Mesh`` axis ``"rays"``;
+(/root/reference/src/lib.rs:532-550). The replacement here: rays are
+data-parallel across devices on a 1-D ``jax.sharding.Mesh`` axis ``"rays"``;
 MLP parameters (~2.4 MB per network) are replicated, so gradient sync is a
 single psum all-reduce XLA inserts automatically for sharded-batch /
 replicated-param jit. TP/PP/EP are deliberately not built — they do not apply

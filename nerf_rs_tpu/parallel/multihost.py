@@ -3,8 +3,8 @@
 The reference has no multi-process capability (SURVEY.md §2: rayon threads
 only). Here, scaling past one host is JAX's distributed runtime: every host
 calls `initialize()` before touching devices; XLA then runs collectives
-over ICI within a slice and DCN across hosts with the same mesh code used
-on one chip (parallel/mesh.py builds the mesh from `jax.devices()`, which
+within a host (NVLink) and across hosts with the same mesh code used on
+one device (parallel/mesh.py builds the mesh from `jax.devices()`, which
 is already global after initialization).
 
 Rendering multi-host: each host renders the ray shards of ITS devices
@@ -34,7 +34,7 @@ def initialize(
     attempted (single-process startup must stay cheap and offline);
     set $NERF_MULTIHOST_AUTO=1 to opt into calling
     ``jax.distributed.initialize()`` with no arguments, which uses JAX's
-    own cluster auto-detection (TPU pod / SLURM / Open MPI env). Returns
+    own cluster auto-detection (SLURM / Open MPI env). Returns
     True when a multi-process runtime is active. Safe to call again after
     a successful bring-up (the duplicate initialize is swallowed).
     """

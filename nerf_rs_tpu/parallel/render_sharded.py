@@ -1,11 +1,10 @@
-"""Multi-chip image rendering: rays sharded over the mesh via shard_map.
+"""Multi-device image rendering: rays sharded over the mesh via shard_map.
 
-The TPU-native replacement for the reference's rayon par_iter over 8x8
-pixel blocks (/root/reference/src/lib.rs:532-550): the pixel grid becomes
-one flat ray axis, sharded across every chip of a `jax.sharding.Mesh`;
-each chip runs the same single-device chunked render (Pallas kernels
-included — shard_map gives each device its own program, which is how
-Pallas composes with SPMD). Parameters are replicated; no collectives are
+The replacement for the reference's rayon par_iter over 8x8 pixel blocks
+(/root/reference/src/lib.rs:532-550): the pixel grid becomes one flat ray
+axis, sharded across every device of a `jax.sharding.Mesh`; each device
+runs the same single-device chunked render (shard_map gives each device
+its own program). Parameters are replicated; no collectives are
 needed in the forward render, and the host gathers pixel shards exactly
 like the reference's scatter into the flat image (lib.rs:552-557).
 
@@ -86,8 +85,6 @@ def _render_flat_sharded(params_coarse, params_fine, origin, dirs_flat, near,
         per_device, mesh=mesh,
         in_specs=in_specs,
         out_specs=P(RAY_AXIS),
-        # Pallas calls don't carry varying-mesh-axis metadata yet.
-        check_vma=False,
     )
     return fn(*args)
 
@@ -109,7 +106,6 @@ def _render_flat_aux_sharded(params_coarse, params_fine, origin, dirs_flat,
         per_device, mesh=mesh,
         in_specs=(P(RAY_AXIS),),
         out_specs=(P(RAY_AXIS), P(RAY_AXIS), P(RAY_AXIS)),
-        check_vma=False,
     )
     return fn(dirs_flat)
 

@@ -1,18 +1,19 @@
-"""Multi-chip training: ray-data-parallel over a jax.sharding.Mesh.
+"""Multi-device training: ray-data-parallel over a jax.sharding.Mesh.
 
 Shardings: batch leading axis -> P("rays"), params/opt-state replicated.
 The step is an explicit shard_map program: each device runs fwd+bwd on its
 ray shard with GLOBAL ray ids (so the jitter matches the single-device
 step bitwise per ray), then ONE fused pmean all-reduces gradients and
-metrics together over ICI. Explicit shard_map — rather than letting the
+metrics together (NCCL over NVLink on a multi-GPU host). Explicit shard_map — rather than letting the
 partitioner propagate through a global program — matters for the accel
 path: compact_apply's cumsum/scatter over a globally-flattened sample
 axis is not partitionable, and XLA inserts all-gathers that replicate the
-whole MLP batch onto every chip (measured: 6 all-gathers). Per-device
+whole MLP batch onto every device (6 all-gathers in the compiled HLO). Per-device
 compaction keeps the step collective-minimal (tests/test_hlo.py pins it).
 
 Multi-host: call `jax.distributed.initialize()` before building the mesh;
-the same code then spans hosts (DCN across hosts, ICI within a slice).
+the same code then spans hosts (the collective crosses the hosts'
+network instead of NVLink).
 """
 
 from __future__ import annotations
@@ -80,7 +81,9 @@ def _sharded_step(mesh, state: TrainState, batch, key, cfg: TrainConfig,
         per_device, mesh=mesh,
         in_specs=(P(), _batch_specs(batch), P()),
         out_specs=(P(), P()),
-        # Pallas calls don't carry varying-mesh-axis metadata yet.
+        # With varying-axis checking on, the compiled step carries one
+        # all-reduce per gradient leaf (49) instead of ONE fused pmean
+        # (tests/test_hlo.py).
         check_vma=False,
     )
     grads, metrics = fn(state.params, batch,

@@ -1,6 +1,6 @@
-"""Interactive browser viewer — TPU-native replacement for the reference's
-wasm demo page (/root/reference/docs/index.html): the browser talks to this
-HTTP server, which renders on the TPU and streams PNG frames.
+"""Interactive browser viewer — replacement for the reference's wasm demo
+page (/root/reference/docs/index.html): the browser talks to this HTTP
+server, which renders on JAX's default device and streams RGBA frames.
 
     python -m nerf_rs_tpu.serve --port 8400
     # then open http://localhost:8400
@@ -23,7 +23,7 @@ _PAGE = """<!doctype html>
  button { padding: .5rem 1rem; margin-right: .5rem; }
 </style></head>
 <body>
-<h2>nerf_rs_tpu &mdash; lego scene, rendered on TPU</h2>
+<h2>nerf_rs_tpu &mdash; lego scene, rendered on __DEVICE__</h2>
 <p><button id="render">Render</button> <span id="status"></span></p>
 <canvas id="canvas" width="256" height="256"></canvas>
 <script>
@@ -31,7 +31,7 @@ const btn = document.getElementById('render');
 const status = document.getElementById('status');
 let seed = 0;
 btn.onclick = async () => {
-  status.textContent = 'rendering on TPU...';
+  status.textContent = 'rendering on __DEVICE__...';
   const t0 = performance.now();
   try {
     const resp = await fetch(`/render?width=256&height=256&seed=${seed++}`);
@@ -53,11 +53,19 @@ btn.onclick = async () => {
 """
 
 
+def _device_kind() -> str:
+    """The device the renders run on, as JAX reports it (e.g. 'NVIDIA H100
+    80GB HBM3', or 'cpu')."""
+    import jax
+
+    return jax.devices()[0].device_kind
+
+
 class Handler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802
         url = urlparse(self.path)
         if url.path in ("/", "/index.html"):
-            body = _PAGE.encode()
+            body = _PAGE.replace("__DEVICE__", _device_kind()).encode()
             self.send_response(200)
             self.send_header("content-type", "text/html")
             self.send_header("content-length", str(len(body)))

@@ -7,7 +7,7 @@ independent parameter sets trained together, exactly like bmild/nerf.
 
 Distribution: batches of rays are sharded over the mesh's "rays" axis and
 parameters are replicated, so XLA inserts a single psum all-reduce for the
-gradients — the TPU-native replacement for the reference's rayon layer.
+gradients — the replacement for the reference's rayon layer.
 """
 
 from __future__ import annotations

@@ -72,7 +72,7 @@ def test_compact_apply_overflow_falls_back_to_fill():
 
 
 def test_compact_apply_gather_matches_scatter(monkeypatch):
-    """The gather-only compaction (TPU default) is bit-equal to the scatter
+    """The gather-only compaction is bit-equal to the scatter
     formulation, including the overflow regime (capacity < live count)."""
     rng = np.random.default_rng(3)
     rows = jnp.asarray(rng.normal(size=(128, 6)).astype(np.float32))
@@ -343,9 +343,7 @@ def test_probe_range_tighter_than_box(lego_params, golden):
 
 
 # ---------------------------------------------------------------------------
-# Round-3 accel redesign: mask-only culling + ray-level packing (the measured
-# TPU winners; per-sample compaction lost to the dense pipeline outright —
-# scatter 44 K / gather 21 K vs 291 K rays/s at 800x800, accel.py).
+# Mask-only culling + ray-level packing (the accel defaults).
 # ---------------------------------------------------------------------------
 
 

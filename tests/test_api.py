@@ -49,8 +49,8 @@ def test_accel_mode_serves_close_images(assets_dir):
     exact = api.render_image_rgba(16, 16, seed=0).astype(np.float32)
 
     api._state.clear()
-    # CPU: build the small grid through the oracle (the fused kernel's
-    # interpret mode works too, just slower).
+    # CPU: build the small grid through the f32 MLP (faster on CPU than
+    # the default bf16 sweep).
     import nerf_rs_tpu.accel as accel_mod
 
     orig = accel_mod.build_occupancy_grid

@@ -1,7 +1,7 @@
 """ArchConfig model family: smaller distillation students alongside the
 canonical lego architecture (the reference has exactly one arch,
-network.rs:172-237; the family is the framework's FLOP-reduction lever —
-docs/PERF.md work-reduction analysis)."""
+network.rs:172-237; the family is the framework's FLOP-reduction lever:
+MLP FLOPs fall quadratically with width)."""
 
 import json
 
@@ -84,49 +84,6 @@ def test_validate_param_chain_rejects_inconsistency():
         validate_param_chain(bad)
 
 
-def test_fused_kernel_serves_aligned_family_rejects_unaligned():
-    """The fused kernel generalizes over the 128-aligned family: the
-    width-128 student packs and matches the oracle (fwd + grads); the
-    64-wide deep student is unaligned and must reject cleanly."""
-    from nerf_rs_tpu.ops.kernels.fused_mlp import (
-        fused_nerf_mlp, infer_arch, pack_params, supports_arch,
-    )
-
-    params = init_nerf_params(jax.random.key(0), arch=STUDENT)
-    assert infer_arch(params) == (128, 64, 8, 4)
-    assert supports_arch(params)
-    pack_params(params, jnp.float32)   # packs without error
-
-    rng = np.random.default_rng(1)
-    pts = jnp.asarray(rng.uniform(-1.5, 1.5, (200, 3)).astype(np.float32))
-    dirs = jnp.asarray(rng.normal(size=(200, 3)).astype(np.float32))
-    dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True)
-    r0, s0 = nerf_mlp(params, pts, dirs)
-    r1, s1 = fused_nerf_mlp(params, pts, dirs, dtype="float32", tile=128)
-    np.testing.assert_allclose(np.asarray(r0), np.asarray(r1), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(s0), np.asarray(s1), atol=2e-5)
-
-    def loss(fn):
-        def f(p):
-            r, s = fn(p, pts, dirs)
-            return jnp.sum(r ** 2) + jnp.sum(jnp.sin(s))
-        return f
-
-    go = jax.grad(loss(nerf_mlp))(params)
-    gf = jax.grad(loss(lambda p, x, d: fused_nerf_mlp(
-        p, x, d, dtype="float32", tile=128)))(params)
-    for lo, lf in zip(jax.tree_util.tree_leaves(go),
-                      jax.tree_util.tree_leaves(gf)):
-        scale = float(jnp.abs(lo).max()) + 1e-8
-        np.testing.assert_allclose(np.asarray(lf) / scale,
-                                   np.asarray(lo) / scale, atol=5e-6)
-
-    unaligned = init_nerf_params(jax.random.key(0), arch=DEEP_STUDENT)
-    assert not supports_arch(unaligned)
-    with pytest.raises(ValueError, match="128"):
-        pack_params(unaligned, jnp.float32)
-
-
 def test_student_train_step_runs():
     from nerf_rs_tpu.parallel.train_sharded import (
         create_sharded_train_state,
@@ -154,8 +111,7 @@ def test_student_train_step_runs():
 
 def test_train_resume_arch_mismatch_errors(tmp_path):
     """Resuming a checkpoint with different --width/--depth flags must fail
-    loudly: orbax restores the *saved* arrays whenever the tree structure
-    matches, so without the guard the flags would be silently ignored."""
+    loudly, naming both architectures, before any array is restored."""
     from nerf_rs_tpu.cli import main
 
     ck = str(tmp_path / "ck")
@@ -192,22 +148,6 @@ def test_restore_params_template_free(tmp_path):
         params["coarse"]["rgb"]["bias"])
 
 
-def test_fused_kernel_no_skip_arch():
-    """skip_at == depth-1 is the no-skip sentinel: no dense{depth} layer
-    exists, and the fused path must serve it instead of KeyError-ing."""
-    from nerf_rs_tpu.ops.kernels.fused_mlp import fused_nerf_mlp, infer_arch
-
-    arch = ArchConfig(width=128, v_width=64, depth=4, skip_at=3)
-    params = init_nerf_params(jax.random.key(0), arch=arch)
-    assert infer_arch(params) == (128, 64, 4, 3)
-    pts = jnp.linspace(-1.0, 1.0, 30).reshape(10, 3)
-    dirs = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]]), (10, 1))
-    r0, s0 = nerf_mlp(params, pts, dirs)
-    r1, s1 = fused_nerf_mlp(params, pts, dirs, dtype="float32", tile=128)
-    np.testing.assert_allclose(np.asarray(r0), np.asarray(r1), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(s0), np.asarray(s1), atol=2e-5)
-
-
 def test_load_nerf_params_rejects_malformed_directory(tmp_path):
     """A weight directory missing a head must fail AT LOAD, not as an
     opaque KeyError inside jit tracing later."""
@@ -221,28 +161,3 @@ def test_load_nerf_params_rejects_malformed_directory(tmp_path):
         "\n".join(l for l in st if not l.startswith("alpha")) + "\n")
     with pytest.raises(ValueError, match="alpha"):
         load_nerf_params(tmp_path / "net", device_put=False)
-
-
-def test_fused_kernel_random_aligned_archs():
-    """Property sweep: several random 128-aligned family members all match
-    the oracle through the fused kernel (fwd, f32)."""
-    from nerf_rs_tpu.ops.kernels.fused_mlp import fused_nerf_mlp
-
-    rng = np.random.default_rng(11)
-    pts = jnp.asarray(rng.uniform(-1.5, 1.5, (64, 3)).astype(np.float32))
-    dirs = jnp.asarray([[0.0, 1.0, 0.0]] * 64)
-    for trial in range(4):
-        depth = int(rng.integers(2, 9))
-        arch = ArchConfig(
-            width=int(rng.choice([128, 256, 384])),
-            v_width=int(rng.choice([32, 64, 128, 192])),
-            depth=depth,
-            skip_at=int(rng.integers(0, depth)),
-        )
-        params = init_nerf_params(jax.random.key(trial), arch=arch)
-        r0, s0 = nerf_mlp(params, pts, dirs)
-        r1, s1 = fused_nerf_mlp(params, pts, dirs, dtype="float32", tile=128)
-        np.testing.assert_allclose(np.asarray(r0), np.asarray(r1),
-                                   atol=3e-6, err_msg=str(arch))
-        np.testing.assert_allclose(np.asarray(s0), np.asarray(s1),
-                                   atol=1e-4, err_msg=str(arch))

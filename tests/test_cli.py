@@ -164,8 +164,7 @@ def test_cli_evaluate(tmp_path, assets_dir, capsys):
 def test_cli_render_bare_export_weights(tmp_path, assets_dir):
     """`render --weights <cli-export dir>` (coarse/+fine/ only, no camera
     JSON) works: params load bare, the camera falls back to the pretrained
-    assets' golden (or --camera); unaligned student weights auto-fall back
-    to impl='xla' instead of crashing the fused kernel."""
+    assets' golden (or --camera); an unaligned student arch renders."""
     import jax
 
     from nerf_rs_tpu.config import ArchConfig

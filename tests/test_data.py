@@ -15,13 +15,13 @@ from nerf_rs_tpu.models.mlp import init_nerf_params
 @pytest.fixture()
 def blender_scene(tmp_path):
     """Write a minimal 2-frame nerf_synthetic-style scene."""
-    from PIL import Image
+    from nerf_rs_tpu.io.image import encode_png
 
     rng = np.random.default_rng(0)
     frames = []
     for i in range(2):
         img = (rng.uniform(0, 1, (8, 8, 4)) * 255).astype(np.uint8)
-        Image.fromarray(img, "RGBA").save(tmp_path / f"r_{i}.png")
+        (tmp_path / f"r_{i}.png").write_bytes(encode_png(img))
         theta = i * 0.7
         c2w = np.eye(4, dtype=np.float32)
         c2w[:3, 3] = [4 * np.sin(theta), -4 * np.cos(theta), 1.0]

@@ -24,7 +24,6 @@ def _run(script, *args):
 
 @pytest.mark.parametrize("script,args", [
     ("01_render.py", ("--cpu", "--size", "16", "--out", "/tmp/ex01.png")),
-    ("02_fused_kernel.py", ("--cpu", "--n", "256")),
     ("03_train_distillation.py",
      ("--cpu", "--steps", "2", "--batch-rays", "64", "--ckpt", "/tmp/ex03")),
     ("04_multichip_render.py", ("--cpu", "--size", "16")),

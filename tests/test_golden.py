@@ -1,6 +1,6 @@
 """Golden-value regression against the original TF NeRF.
 
-TPU-native analogue of the reference's single unit test
+The analogue of the reference's single unit test
 (coarse_and_fine_match_reference_examples, /root/reference/src/lib.rs:753-916):
 evaluate both pretrained networks at origin + ray_d * t for t in z_vals and
 assert sigma and RGB within 1e-2 of the TF goldens. Data comes from the JSON

@@ -217,8 +217,7 @@ def test_hashgrid_sharded_render_matches_single_device():
 
 def test_hashgrid_numeric_gradients():
     """check_grads on the full forward (encoding + both MLPs): the
-    trilinear/hash gather chain must be numerically differentiable — the
-    same anchor the fused MLP kernels are held to."""
+    trilinear/hash gather chain must be numerically differentiable."""
     from jax.test_util import check_grads
 
     key = jax.random.key(12)
@@ -256,8 +255,7 @@ def test_hashgrid_single_pass_render_and_aux():
 
 
 def test_sorted_table_gradient_matches_scatter():
-    """The sorted segment-sum VJP (grad_impl='sorted', the TPU default —
-    XLA's colliding-index scatter-add measured 467 rays/s) must produce
+    """The sorted segment-sum VJP (grad_impl='sorted') must produce
     the same table gradient as autodiff through jnp.take, to f32 cumsum
     tolerance, including heavy collisions (many points in one cell)."""
     key = jax.random.key(11)

@@ -133,3 +133,89 @@ def test_find_lego_assets_npz(tmp_path, monkeypatch):
                 init_nerf_params(jax.random.key(1)), json.dumps({}))
     monkeypatch.setenv(ASSET_ENV_VAR, str(path))
     assert find_lego_assets() == path
+
+
+# ---------- PNG (stdlib zlib codec) ----------
+
+def _png_bytes(img, filters):
+    """A PNG written here from the spec with the given per-row filter
+    types (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), byte by byte."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    raw = bytearray()
+    prev = [0] * (w * c)
+    for y in range(h):
+        row = [int(v) for v in img[y].reshape(-1)]
+        ft = filters[y % len(filters)]
+        out = []
+        for i, x in enumerate(row):
+            a = row[i - c] if i >= c else 0
+            b = prev[i]
+            cc = prev[i - c] if i >= c else 0
+            if ft == 0:
+                pred = 0
+            elif ft == 1:
+                pred = a
+            elif ft == 2:
+                pred = b
+            elif ft == 3:
+                pred = (a + b) // 2
+            else:
+                p = a + b - cc
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
+                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else cc)
+            out.append((x - pred) % 256)
+        raw += bytes([ft] + out)
+        prev = row
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_png_roundtrip(tmp_path, channels):
+    from nerf_rs_tpu.io.image import decode_png, encode_png, load_png, save_png
+
+    img = np.random.default_rng(channels).integers(
+        0, 256, (13, 7, channels), dtype=np.uint8)
+    np.testing.assert_array_equal(decode_png(encode_png(img)), img)
+    if channels == 3:
+        px = img.astype(np.float32) / 255.0
+        save_png(tmp_path / "a.png", px, 13, 7)
+        np.testing.assert_array_equal(
+            np.round(load_png(tmp_path / "a.png") * 255).astype(np.uint8), img)
+
+
+def test_png_decodes_every_row_filter():
+    from nerf_rs_tpu.io.image import decode_png
+
+    img = np.random.default_rng(9).integers(0, 256, (10, 6, 4), dtype=np.uint8)
+    np.testing.assert_array_equal(decode_png(_png_bytes(img, [0, 1, 2, 3, 4])), img)
+    rgb = img[..., :3].copy()
+    np.testing.assert_array_equal(decode_png(_png_bytes(rgb, [4, 3, 1])), rgb)
+
+
+def test_png_rejects_unsupported_and_corrupt():
+    import struct
+    import zlib
+
+    from nerf_rs_tpu.io.image import decode_png, encode_png
+
+    good = encode_png(np.zeros((2, 2, 3), np.uint8))
+    with pytest.raises(ValueError, match="CRC"):
+        decode_png(good[:20] + bytes([good[20] ^ 1]) + good[21:])
+    with pytest.raises(ValueError, match="not a PNG"):
+        decode_png(b"GIF89a" + good[6:])
+    ihdr = struct.pack(">IIBBBBB", 2, 2, 16, 2, 0, 0, 0)   # 16-bit RGB
+    bad = (good[:8] + struct.pack(">I", 13) + b"IHDR" + ihdr
+           + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr) & 0xFFFFFFFF)
+           + good[33:])
+    with pytest.raises(ValueError, match="unsupported PNG"):
+        decode_png(bad)

@@ -124,7 +124,7 @@ def test_two_process_train_step_matches_single(tmp_path):
 
 
 def test_two_process_train_step_wall_clock_sanity(tmp_path):
-    """Wall-clock sanity for the cross-process path (VERDICT r1 item 10):
+    """Wall-clock sanity for the cross-process path:
     the same 4-device global mesh run as 1 process vs 2 processes (Gloo
     collectives between them) must stay within a generous constant factor —
     this catches serialization pathologies (a deadlocking/serializing psum

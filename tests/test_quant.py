@@ -22,7 +22,7 @@ def _pts_dirs(n=512, key=0):
 
 def test_real_matches_fake(lego_params):
     """The int8 inference path and the QAT STE emulation compute the SAME
-    quantized arithmetic — int32 MXU accumulate vs float multiply of the
+    quantized arithmetic — int32 accumulate vs float multiply of the
     same integers (products < 2^24 are exact in f32)."""
     pts, dirs = _pts_dirs()
     rgb_r, sig_r = int8_nerf_mlp(lego_params["fine"], pts, dirs)

@@ -112,26 +112,6 @@ def test_train_step_with_full_grid_matches_dense():
         assert (diff > 1e-5).mean() < 1e-3
 
 
-def test_loss_grads_pallas_matches_xla(lego_params):
-    """BASELINE target 'allclose on pixel gradients': the END-TO-END loss
-    gradient (stratified sampling -> coarse MLP -> importance resampling ->
-    fine MLP -> composite -> MSE) through the fused Pallas kernel matches
-    the pure-XLA oracle path on the pretrained weights."""
-    batch = _batch(32, seed=5)
-    key = jax.random.key(3)
-    params = {"coarse": lego_params["coarse"], "fine": lego_params["fine"]}
-
-    def grads(impl):
-        cfg = TINY.replace(render=TINY.render.replace(impl=impl))
-        return jax.grad(lambda p: nerf_loss(p, batch, key, cfg)[0])(params)
-
-    g_x, g_p = grads("xla"), grads("pallas")
-    for a, b in zip(jax.tree_util.tree_leaves(g_x),
-                    jax.tree_util.tree_leaves(g_p)):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   atol=1e-6, rtol=1e-4)
-
-
 def test_sharded_step_divisibility_error():
     """The friendly error must fire before shard_batch's device_put (which
     raises its own, less helpful, divisibility error)."""
@@ -228,8 +208,7 @@ def test_placement_aware_training_grads_flow(lego_params):
     """Single-pass training under serving-preset sample placement
     (accel_sample_aabb + per-ray probe refinement, cli train --accel-aabb
     --accel-probes): samples land in each ray's occupied run, the loss is
-    finite, and gradients flow — the round-4 fine-tune recipe that fixes
-    the measured placement-mismatch crawl (docs/PERF.md)."""
+    finite, and gradients flow — the single-pass fine-tune recipe."""
     from nerf_rs_tpu.accel import build_scene_grid
     from nerf_rs_tpu.models.mlp import nerf_mlp
 

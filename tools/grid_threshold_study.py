@@ -1,20 +1,19 @@
 """Occupancy-grid tightness study: sigma_threshold vs culling power vs PSNR.
 
-Motivation (measured 2026-08-19 on v5e, docs/PERF.md): the default
-conservative grid (sigma_threshold=0.01 + dilation) marks ~44% of the
-lego volume occupied, so the occupied-AABB slab test passes for ~93% of
-the bench camera's rays — ray packing saved almost nothing (accel_cull_800
-176K vs base 298K rays/s). The grid's tightness, not the packing
-machinery, is the knob. This study measures, per threshold, on CPU
-(hardware-independent numerics):
+Motivation: the default conservative grid (sigma_threshold=0.01 +
+dilation) marks ~44% of the lego volume occupied, so the occupied-AABB
+slab test passes for ~93% of the bench camera's rays and ray packing
+culls little. The grid's tightness, not the packing machinery, is the
+knob. This study measures, per threshold, on CPU (hardware-independent
+numerics):
 
 - occupied volume fraction and the per-ray culling power it buys
   (AABB-hit fraction, probe-hit fraction, mean probe span), and
 - image PSNR of the packed accel_compact="off" render vs the exact one
   (the bench's accel_psnr_db guard) at the golden camera.
 
-The speed column is TPU-gated (NERF_BENCH_ACCEL_THRESH sweep legs); this
-decides which thresholds are even quality-eligible.
+Speed needs a run on the GPU (bench.py with NERF_BENCH_ACCEL_THRESH);
+this decides which thresholds are even quality-eligible.
 
 Usage: JAX_PLATFORMS=cpu python tools/grid_threshold_study.py [--size 64]
 """
